@@ -1,8 +1,8 @@
-"""TPU-native equivariant visual-inertial odometry (EqVIO capabilities, JAX/Pallas design).
+"""Equivariant visual-inertial odometry (EqVIO capabilities) in JAX.
 
 A from-scratch re-design of the reference EqVIO pipeline (pvangoor/eqvio) for
-TPU hardware: fixed-capacity masked landmark state, jitted pure-function filter
-steps, batched Lie-group math, Pallas feature-tracking kernels and sharded
+accelerators: fixed-capacity masked landmark state, jitted pure-function filter
+steps, batched Lie-group math, a batched feature tracker and sharded
 multi-sequence execution over a device mesh.
 """
 

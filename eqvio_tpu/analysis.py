@@ -13,8 +13,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import yaml
 
+from .io.yaml_lite import safe_dump, safe_load
 from .runner import umeyama_alignment
 
 
@@ -153,7 +153,7 @@ def analyse_output_dir(output_dir: str, gt_csv: str, gt_format: str = "asl") -> 
         gt_vel=gt_vel,
     )
     with open(os.path.join(output_dir, "results.yaml"), "w") as f:
-        yaml.safe_dump(res, f)
+        safe_dump(res, f)
     return res
 
 
@@ -163,7 +163,7 @@ def summarise_results(result_files: list[str]) -> dict:
     rmses = []
     for path in result_files:
         with open(path) as f:
-            res = yaml.safe_load(f)
+            res = safe_load(f)
         name = os.path.basename(os.path.dirname(path))
         summary[name] = res
         if not res["flags"]["nan"] and not res["flags"]["early_finish"]:

@@ -15,10 +15,9 @@ from __future__ import annotations
 import argparse
 import os
 
-import yaml
-
 from ..analysis import analyse_output_dir, make_report, summarise_results
 from ..io import load_config
+from ..io.yaml_lite import safe_dump, safe_load
 from .run_opt import run_dataset
 
 
@@ -30,7 +29,7 @@ def run_batch(dataset_list: str, config_path: str, output_root: str, dtype=None,
 
         dtype = configure_runtime()
     with open(dataset_list) as f:
-        datasets = yaml.safe_load(f)
+        datasets = safe_load(f)
     config = load_config(config_path)
 
     result_files = []
@@ -85,7 +84,7 @@ def run_batch(dataset_list: str, config_path: str, output_root: str, dtype=None,
     )
     summary = summarise_results(all_results)
     with open(os.path.join(output_root, "summary.yaml"), "w") as f:
-        yaml.safe_dump(summary, f)
+        safe_dump(summary, f)
     print(f"mean position rmse: {summary['mean position rmse']:.4f} m "
           f"({summary['completed']} sequences)")
     return summary

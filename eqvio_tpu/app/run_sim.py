@@ -23,7 +23,7 @@ from ..runner import ate_rmse, attitude_rmse, run_simulation
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU-native EqVIO simulation")
+    ap = argparse.ArgumentParser(description="EqVIO simulation")
     ap.add_argument("config", nargs="?", default=None)
     ap.add_argument("--output", default=None)
     ap.add_argument("--trajectory", default=None)
@@ -142,6 +142,8 @@ def main(argv=None):
                 else:
                     writer.write_nees(times[k], nees[k], 21 + 3 * int(res.num_landmarks[k]))
         print(f"wrote outputs to {args.output}")
+    return {"frames": len(est), "rmse": float(rmse), "scale": float(scale),
+            "attitude_rmse_deg": float(att)}
 
 
 if __name__ == "__main__":

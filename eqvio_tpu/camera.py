@@ -1,6 +1,6 @@
 """Camera models: pinhole, radial-tangential, equidistant (fisheye).
 
-TPU-native equivalent of the GIFT camera interface used by the reference
+Equivalent of the GIFT camera interface used by the reference
 (``GIFT::GICameraPtr`` with ``projectPoint / undistortPoint /
 projectionJacobian / isInDomain``; see reference use sites
 ``VIOState.cpp:70-78``, ``VIOGroup.cpp:57-69``, ``euclid.cpp:176``,

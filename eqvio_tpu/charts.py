@@ -1,6 +1,6 @@
 """Coordinate charts for the VIO state manifold.
 
-TPU-native equivalent of the reference chart machinery
+Equivalent of the reference chart machinery
 (``src/mathematical/VIOState.cpp:104-401``): sphere charts (stereographic and
 normal), landmark point charts (euclidean / inverse-depth / normal), sensor
 charts (std / SE_2(3)-coupled normal) and the assembled full-state charts.

@@ -13,18 +13,18 @@ import re
 
 import numpy as np
 
+from ..io.yaml_lite import safe_load
 from .asl import CameraInfo, GroundTruth, IMUSeq, ImageSeq
+from .png import load_gray_u8
 
 
 def _parse_opencv_yaml(path: str) -> dict:
     """Parse an OpenCV FileStorage YAML (has %YAML directive + !!opencv-matrix)."""
-    import yaml
-
     with open(path) as f:
         text = f.read()
     text = re.sub(r"^%YAML[^\n]*\n", "", text)
     text = text.replace("!!opencv-matrix", "")
-    return yaml.safe_load(text)
+    return safe_load(text)
 
 
 class APDatasetReader:
@@ -74,15 +74,9 @@ class APDatasetReader:
         return GroundTruth(data[:, 0], data[:, 1:4], data[:, 4:8], None)
 
     def load_image(self, index: int) -> np.ndarray:
-        from PIL import Image
-
-        img = Image.open(self.images.paths[index]).convert("L")
-        return np.asarray(img, dtype=np.float32) / 255.0
+        return self.load_image_u8(index).astype(np.float32) / 255.0
 
     def load_image_u8(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale uint8 (canonical in-flight
         format: 4x less host->device traffic than f32)."""
-        from PIL import Image
-
-        img = Image.open(self.images.paths[index]).convert("L")
-        return np.asarray(img, dtype=np.uint8)
+        return load_gray_u8(self.images.paths[index])

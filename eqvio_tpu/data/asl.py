@@ -1,6 +1,6 @@
 """EuRoC ASL-format dataset reader.
 
-TPU-native equivalent of the reference's ``ASLDatasetReader``
+Equivalent of the reference's ``ASLDatasetReader``
 (``src/dataserver/ASLDatasetReader.cpp:22-126``): ``mav0/{imu0,cam0}/data.csv``
 with nanosecond stamps, ``sensor.yaml`` camera intrinsics (radial-tangential)
 and ``T_BS`` extrinsics, ground truth with duplicate-stamp removal.
@@ -16,7 +16,9 @@ import os
 from typing import NamedTuple
 
 import numpy as np
-import yaml
+
+from ..io.yaml_lite import safe_load
+from .png import load_gray_u8
 
 
 class CameraInfo(NamedTuple):
@@ -74,7 +76,7 @@ class ASLDatasetReader:
     def _read_camera(self, camera_yaml) -> CameraInfo:
         path = camera_yaml or os.path.join(self.base, "cam0", "sensor.yaml")
         with open(path) as f:
-            cfg = yaml.safe_load(f)
+            cfg = safe_load(f)
         fu, fv, cu, cv = cfg["intrinsics"]
         dist = tuple(cfg.get("distortion_coefficients", (0.0, 0.0, 0.0, 0.0)))
         model = cfg.get("distortion_model", "radial-tangential")
@@ -100,15 +102,9 @@ class ASLDatasetReader:
 
     def load_image(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale float32 in [0, 1]."""
-        from PIL import Image
-
-        img = Image.open(self.images.paths[index]).convert("L")
-        return np.asarray(img, dtype=np.float32) / 255.0
+        return self.load_image_u8(index).astype(np.float32) / 255.0
 
     def load_image_u8(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale uint8 (canonical in-flight
         format: 4x less host->device traffic than f32)."""
-        from PIL import Image
-
-        img = Image.open(self.images.paths[index]).convert("L")
-        return np.asarray(img, dtype=np.uint8)
+        return load_gray_u8(self.images.paths[index])

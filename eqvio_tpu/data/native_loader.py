@@ -1,8 +1,11 @@
 """ctypes binding for the native prefetching PNG loader (native/imageloader.cpp).
 
 The C++ worker thread decodes frames ahead of the consumer — the native
-data-loader role of the reference's ``ThreadedDataServer``.  Falls back to
-PIL decoding when the toolchain or libpng is unavailable.
+data-loader role of the reference's ``ThreadedDataServer``.  It reads what
+the Python codec of ``png.py`` reads and gives the same pixels, and needs
+only zlib.  ``make`` brings the library up to date with its source at first
+use in a process; when the compiler or zlib is missing, the data server
+decodes with ``png.py`` instead.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ def _load():
         return _lib
     _tried = True
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True, capture_output=True)
+        subprocess.run(["make", "-C", _NATIVE_DIR, "libimageloader.so"], check=True,
+                       capture_output=True)
         lib = ctypes.CDLL(_LIB_PATH)
         lib.il_create.restype = ctypes.c_void_p
         lib.il_create.argtypes = [

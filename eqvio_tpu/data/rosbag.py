@@ -1,6 +1,6 @@
 """ROS1 bag (v2.0) dataset reader — no ROS installation required.
 
-TPU-native equivalent of the reference's ``RosbagDatasetReader``
+Equivalent of the reference's ``RosbagDatasetReader``
 (``src/dataserver/RosbagDatasetReader.cpp:44-117``) and
 ``HiltiDatasetReader`` (``src/dataserver/HiltiDatasetReader.cpp:21-52``).
 The reference links against the ``rosbag`` C++ library; here the bag
@@ -38,7 +38,8 @@ import struct
 from typing import NamedTuple
 
 import numpy as np
-import yaml
+
+from ..io.yaml_lite import safe_load
 
 from .asl import CameraInfo, GroundTruth, ImageSeq, IMUSeq
 
@@ -333,7 +334,7 @@ class RosbagDatasetReader:
     def _read_camera(self, path: str) -> CameraInfo:
         """intrinsics.yaml beside the bag (RosbagDatasetReader.cpp:66-96)."""
         with open(path) as f:
-            cfg = yaml.safe_load(f)
+            cfg = safe_load(f)
         w, h = cfg["resolution"]
         fx, fy, cx, cy = cfg["intrinsics"][:4]
         dist = tuple(cfg.get("distortion_coefficients", ()))
@@ -371,7 +372,7 @@ class HiltiDatasetReader(RosbagDatasetReader):
 
     def _read_camera(self, path: str) -> CameraInfo:
         with open(path) as f:
-            cfg = yaml.safe_load(f)
+            cfg = safe_load(f)
         cam = cfg["sensors"]["cam0"]
         par = cam["intrinsics"]["parameters"]
         w, h = par["image_size"]

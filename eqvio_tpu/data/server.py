@@ -3,7 +3,7 @@
 Replaces the reference data-server family (``SimpleDataServer`` /
 ``ThreadedDataServer``, ``src/dataserver/*.cpp``): a background thread
 decodes images ahead of the consumer into a bounded queue — the host-side
-producer that keeps the device fed, the TPU analogue of
+producer that keeps the device fed, the analogue of
 ``ThreadedDataServer.cpp:20-116``.
 """
 
@@ -87,7 +87,8 @@ class DataServer:
         imu_idx = [i for i, s in enumerate(imu.stamps) if lo - 0.1 <= s <= hi]
 
         # background decoder (ThreadedDataServer equivalent): the native C++
-        # prefetcher when available (PNG frames), else a Python thread + PIL
+        # prefetcher when available (PNG frames), else a Python thread that
+        # decodes through the reader (png.py)
         native_iter = None
         paths = [images.paths[i] for i in img_idx]
         if paths and all(str(p).lower().endswith(".png") for p in paths):

@@ -15,8 +15,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..io.writer import rotation_to_quaternion
+from ..io.yaml_lite import safe_dump
 from ..lie import se3_inv, se3_mul, SE3
 from ..sim import Simulator
+from .png import write_gray
 
 
 def _render(points_px: np.ndarray, visible: np.ndarray, w: int, h: int, rng,
@@ -89,8 +91,6 @@ def generate_asl_dataset(
     ground truth stays clean.
     ``gt_freq``: ground-truth rate (defaults to the frame rate).
     """
-    from PIL import Image
-
     from ..camera import RadTanCamera
 
     sim = Simulator.create(
@@ -180,9 +180,7 @@ def generate_asl_dataset(
                 rwidth = np.concatenate([blob_w, d_width])
             img = _render(px, vis, width, height, rng, ramp, rwidth)
             name = f"{int(t * 1e9)}.png"
-            Image.fromarray((img * 255).astype(np.uint8)).save(
-                os.path.join(base, "cam0", "data", name)
-            )
+            write_gray(os.path.join(base, "cam0", "data", name), (img * 255).astype(np.uint8))
             f.write(f"{int(t * 1e9)},{name}\n")
 
     # ground truth (clean)
@@ -225,8 +223,6 @@ def generate_v101_proxy(out_dir: str, end_time: float = 144.0, seed: int = 11):
     including integrated bias random walks.  Returns (sim, stats_dict); the
     measured motion statistics are also written to ``proxy_info.yaml``.
     """
-    import yaml as _yaml
-
     sim = generate_asl_dataset(
         out_dir,
         end_time=end_time,
@@ -279,7 +275,7 @@ def generate_v101_proxy(out_dir: str, end_time: float = 144.0, seed: int = 11):
         },
     }
     with open(os.path.join(out_dir, "proxy_info.yaml"), "w") as f:
-        _yaml.safe_dump(stats, f)
+        safe_dump(stats, f)
     return sim, stats
 
 
@@ -296,8 +292,6 @@ def generate_mh03_proxy(out_dir: str, end_time: float = 132.0, seed: int = 17):
     ADIS16448 datasheet densities with integrated bias random walks.
     Returns (sim, stats_dict); stats also written to ``proxy_info.yaml``.
     """
-    import yaml as _yaml
-
     sim = generate_asl_dataset(
         out_dir,
         end_time=end_time,
@@ -347,15 +341,15 @@ def generate_mh03_proxy(out_dir: str, end_time: float = 132.0, seed: int = 17):
         },
     }
     with open(os.path.join(out_dir, "proxy_info.yaml"), "w") as f:
-        _yaml.safe_dump(stats, f)
+        safe_dump(stats, f)
     return sim, stats
 
 
 def generate_distractor_proxy(out_dir: str, end_time: float = 45.0, seed: int = 21,
                               num_distractors: int = 8):
     """Room-motion proxy with image-pinned distractor blobs — the dataset on
-    which the epipolar RANSAC gate must EARN its keep (VERDICT r4 weak #4:
-    the gate had correctness tests but no committed accuracy evidence).
+    which the epipolar RANSAC gate must earn its keep (its accuracy
+    evidence, beside the correctness tests).
 
     The distractors render as strong corner-like blobs whose image motion is
     smooth (KLT tracks them) but pinned to the image plane, so their tracks
@@ -363,8 +357,6 @@ def generate_distractor_proxy(out_dir: str, end_time: float = 45.0, seed: int = 
     gate they enter the filter as false landmarks; with the gate they are
     epipolar outliers every frame.  Returns (sim, stats).
     """
-    import yaml as _yaml
-
     sim = generate_asl_dataset(
         out_dir,
         end_time=end_time,
@@ -389,7 +381,7 @@ def generate_distractor_proxy(out_dir: str, end_time: float = 45.0, seed: int = 
     )
     stats = {"duration_s": float(end_time), "num_distractors": num_distractors}
     with open(os.path.join(out_dir, "proxy_info.yaml"), "w") as f:
-        _yaml.safe_dump(stats, f)
+        safe_dump(stats, f)
     return sim, stats
 
 
@@ -411,8 +403,6 @@ def generate_uzhfpv_dataset(
 ):
     """Write a synthetic UZH-FPV-format tree (imu.txt / left_images.txt /
     kalibr camchain with equidistant model / groundtruth.txt)."""
-    from PIL import Image
-
     sim = Simulator.create(
         kind=kind, end_time=end_time + 1.0, num_points=num_points,
         num_walls=num_walls, wall_distance=wall_distance, seed=seed,
@@ -453,9 +443,7 @@ def generate_uzhfpv_dataset(
     T_BS[:3, 3] = np.asarray(sim.camera_offset.x)
     T_cam_imu = np.linalg.inv(T_BS)
     with open(os.path.join(out_dir, "camchain-imucam.yaml"), "w") as f:
-        import yaml as _yaml
-
-        _yaml.safe_dump(
+        safe_dump(
             {
                 "cam0": {
                     "camera_model": "pinhole",
@@ -481,7 +469,7 @@ def generate_uzhfpv_dataset(
             vis = (z > 0.1) & (px[:, 0] > 0) & (px[:, 0] < width) & (px[:, 1] > 0) & (px[:, 1] < height)
             img = _render(px, vis, width, height, rng, amp, blob_w)
             name = f"img/image_{i}.png"
-            Image.fromarray((img * 255).astype(np.uint8)).save(os.path.join(out_dir, name))
+            write_gray(os.path.join(out_dir, name), (img * 255).astype(np.uint8))
             f.write(f"{i} {t:.9f} {name}\n")
 
     with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
@@ -513,8 +501,6 @@ def generate_racing_proxy(out_dir: str, end_time: float = 60.0, seed: int = 13):
     including integrated bias random walks.  Returns (sim, stats_dict) and
     writes the measured motion statistics to ``proxy_info.yaml``.
     """
-    import yaml as _yaml
-
     sim = generate_uzhfpv_dataset(
         out_dir,
         end_time=end_time,
@@ -557,5 +543,5 @@ def generate_racing_proxy(out_dir: str, end_time: float = 60.0, seed: int = 13):
         "max_ang_rate_radps": float((ang / np.diff(t))[mask].max()),
     }
     with open(os.path.join(out_dir, "proxy_info.yaml"), "w") as f:
-        _yaml.safe_dump(stats, f)
+        safe_dump(stats, f)
     return sim, stats

@@ -14,9 +14,10 @@ import glob
 import os
 
 import numpy as np
-import yaml
 
+from ..io.yaml_lite import safe_load
 from .asl import CameraInfo, GroundTruth, IMUSeq, ImageSeq
+from .png import load_gray_u8
 
 
 class UZHFPVDatasetReader:
@@ -55,7 +56,7 @@ class UZHFPVDatasetReader:
     def _read_camera(self, camera_yaml) -> CameraInfo:
         path = camera_yaml or self._find_camchain()
         with open(path) as f:
-            cfg = yaml.safe_load(f)["cam0"]
+            cfg = safe_load(f)["cam0"]
         fu, fv, cu, cv = cfg["intrinsics"]
         dist = tuple(cfg["distortion_coeffs"])
         w, h = cfg["resolution"]
@@ -82,15 +83,9 @@ class UZHFPVDatasetReader:
         return GroundTruth(stamps, pos, quat, None)
 
     def load_image(self, index: int) -> np.ndarray:
-        from PIL import Image
-
-        img = Image.open(self.images.paths[index]).convert("L")
-        return np.asarray(img, dtype=np.float32) / 255.0
+        return self.load_image_u8(index).astype(np.float32) / 255.0
 
     def load_image_u8(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale uint8 (canonical in-flight
         format: 4x less host->device traffic than f32)."""
-        from PIL import Image
-
-        img = Image.open(self.images.paths[index]).convert("L")
-        return np.asarray(img, dtype=np.uint8)
+        return load_gray_u8(self.images.paths[index])

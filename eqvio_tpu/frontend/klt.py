@@ -1,11 +1,14 @@
 """Pyramidal Lucas-Kanade feature tracking, batched over features.
 
-TPU-native equivalent of GIFT's pyramidal KLT (``winSize / maxLevel /
-maxError`` config keys, reference ``EQVIO_config_template.yaml:56-58``).
-All features track simultaneously: patch gathers are batched bilinear
-interpolations and the per-feature 2x2 normal equations solve in closed form
-on the VPU.  No data-dependent control flow — fixed iteration counts with
-convergence masking.
+Equivalent of GIFT's pyramidal KLT (``winSize / maxLevel / maxError`` config
+keys, reference ``EQVIO_config_template.yaml:56-58``).  All features track
+simultaneously: patch gathers are batched bilinear interpolations and the
+per-feature 2x2 normal equations solve in closed form.  No data-dependent
+control flow — fixed iteration counts.
+
+One path serves every backend: ``_track_level`` per feature and level,
+vmapped over features (its comparison with a fused kernel on the GPU is in
+PERF.md).
 """
 
 from __future__ import annotations
@@ -81,93 +84,6 @@ def _track_level(img_prev, img_next, pos_prev, guess, win, iters, dtype):
     return p, err
 
 
-# ---------------------------------------------------------------------------
-# MXU path: patch extraction as interpolation matmuls (no gathers).
-# TPU gathers serialise; contracting one-hot interpolation selectors against
-# the image rides the MXU instead.  Identical math to the gather path.
-# ---------------------------------------------------------------------------
-
-
-def _row_selector(cy, H: int, win: int, dtype):
-    """[N, win, H] linear-interpolation row selector with PER-SAMPLE
-    coordinate clamping — identical semantics to the gather path's
-    ``_bilinear`` (edge replication).  The earlier corner-clip variant
-    SHIFTED whole patches at image borders, which at the coarse pyramid
-    level (where win covers a third of the image) misregistered templates
-    and drove LK into neighbouring basins — the round-4 TPU-vs-CPU
-    accuracy divergence (RESULTS.md)."""
-    j = jax.lax.broadcasted_iota(jnp.int32, (1, win), 1).astype(dtype)
-    y = jnp.clip(cy[:, None] + j, 0.0, H - 1.001)  # [N, win]
-    y0 = jnp.floor(y).astype(jnp.int32)
-    f = (y - y0).astype(dtype)
-    ys = jax.lax.broadcasted_iota(jnp.int32, (1, 1, H), 2)
-    return (ys == y0[:, :, None]).astype(dtype) * (1 - f[:, :, None]) + (
-        ys == (y0 + 1)[:, :, None]
-    ).astype(dtype) * f[:, :, None]
-
-
-def _col_selector(cx, W: int, win: int, dtype):
-    """[N, W, win] linear-interpolation column selector (per-sample clamp,
-    see ``_row_selector``)."""
-    j = jax.lax.broadcasted_iota(jnp.int32, (1, win), 1).astype(dtype)
-    x = jnp.clip(cx[:, None] + j, 0.0, W - 1.001)  # [N, win]
-    x0 = jnp.floor(x).astype(jnp.int32)
-    f = (x - x0).astype(dtype)
-    xs = jax.lax.broadcasted_iota(jnp.int32, (1, W, 1), 1)
-    return (xs == x0[:, None, :]).astype(dtype) * (1 - f[:, None, :]) + (
-        xs == (x0 + 1)[:, None, :]
-    ).astype(dtype) * f[:, None, :]
-
-
-def _extract_patches_mxu(img, corner_xy, win: int):
-    """Bilinear [N, win, win] patches at fractional top-left corners, via
-    two einsums (row then column interpolation) on the MXU."""
-    H, W = img.shape
-    dtype = img.dtype
-    R = _row_selector(corner_xy[:, 1].astype(dtype), H, win, dtype)
-    C = _col_selector(corner_xy[:, 0].astype(dtype), W, win, dtype)
-    rows = jnp.einsum("niy,yx->nix", R, img)
-    return jnp.einsum("nix,nxj->nij", rows, C)
-
-
-def _track_level_batch_mxu(img_prev, img_next, pos, guess, win, iters, dtype):
-    """All-features LK for one pyramid level using MXU patch extraction."""
-    r = (win - 1) / 2.0
-    t_corner = pos - r
-    template = _extract_patches_mxu(img_prev, t_corner, win)
-    ex = jnp.asarray([1.0, 0.0], dtype)
-    ey = jnp.asarray([0.0, 1.0], dtype)
-    gx = _extract_patches_mxu(img_prev, t_corner + ex, win) - _extract_patches_mxu(
-        img_prev, t_corner - ex, win
-    )
-    gy = _extract_patches_mxu(img_prev, t_corner + ey, win) - _extract_patches_mxu(
-        img_prev, t_corner - ey, win
-    )
-    gxx = jnp.sum(gx * gx, axis=(1, 2))
-    gxy = jnp.sum(gx * gy, axis=(1, 2))
-    gyy = jnp.sum(gy * gy, axis=(1, 2))
-    det = gxx * gyy - gxy * gxy
-    det = jnp.where(jnp.abs(det) < 1e-12, 1e-12, det)
-
-    def body(_, carry):
-        p, _err = carry
-        patch = _extract_patches_mxu(img_next, p - r, win)
-        diff = patch - template
-        bx = jnp.sum(diff * gx, axis=(1, 2))
-        by = jnp.sum(diff * gy, axis=(1, 2))
-        dx = (gyy * bx - gxy * by) / det
-        dy = (gxx * by - gxy * bx) / det
-        p_new = p - jnp.stack([dx, dy], axis=-1)
-        err = jnp.mean(jnp.abs(diff), axis=(1, 2))
-        return p_new, err
-
-    N = pos.shape[0]
-    p, err = jax.lax.fori_loop(
-        0, iters, body, (guess, jnp.full((N,), jnp.inf, dtype))
-    )
-    return p, err
-
-
 def track_features(
     pyr_prev: list[jnp.ndarray],
     pyr_next: list[jnp.ndarray],
@@ -177,22 +93,12 @@ def track_features(
     win: int = 21,
     iters: int = 8,
     max_error: float = 0.05,
-    use_pallas: bool = False,
-    mode: str = "auto",
 ):
     """Track all features from ``pyr_prev`` to ``pyr_next``.
-
-    ``mode``: "gather" (vmapped bilinear gathers — fast on CPU), "mxu"
-    (interpolation-as-matmul einsums — fast on TPU, no gathers), or "auto"
-    (per backend).  ``use_pallas`` overrides with the Pallas kernel.
 
     Returns ``(new_positions [N, 2], tracked [N])`` where ``tracked`` clears
     features that left the image or exceeded ``max_error`` mean residual
     (GIFT ``maxError``).
-
-    ``use_pallas`` switches large-enough pyramid levels to the VMEM-resident
-    Pallas kernel (``pallas_klt.py``); small levels fall back to the vmapped
-    JAX path.
     """
     dtype = positions.dtype
     levels = len(pyr_prev)
@@ -212,50 +118,7 @@ def track_features(
             )
         return p, err
 
-    if mode == "auto":
-        import os as _os
-
-        mode = _os.environ.get("EQVIO_KLT_MODE", "auto")
-    if mode == "auto":
-        backend = jax.default_backend()
-        # TPU default is the VMEM-resident Pallas kernel: faster than the
-        # interpolation-as-matmul MXU path (round-4 chip: 1.06 vs 1.13 ms per
-        # 4-level 30-feature track) and border-equal to the gather path
-        # (tests/test_pallas_klt.py + on-chip equality gate in bench.py)
-        mode = "pallas" if backend == "tpu" else "gather"
-    if use_pallas:
-        mode = "pallas"
-
-    if mode == "pallas":
-        from .pallas_klt import klt_track_level_pallas
-
-        scale0 = 2.0 ** (levels - 1)
-        p = predicted / scale0
-        errs = jnp.zeros(positions.shape[0], dtype=jnp.float32)
-        for lvl in range(levels - 1, -1, -1):
-            s = 2.0**lvl
-            if lvl < levels - 1:
-                p = p * 2.0
-            # the kernel edge-pads each level to aligned sizes internally
-            p, errs = klt_track_level_pallas(
-                pyr_prev[lvl], pyr_next[lvl], positions / s, p, win=win, iters=iters
-            )
-        new_pos, errs = p.astype(dtype), errs.astype(dtype)
-    elif mode == "mxu":
-        # interpolation-as-matmul: no gathers anywhere (TPU-friendly)
-        scale0 = 2.0 ** (levels - 1)
-        p = predicted / scale0
-        errs = jnp.zeros(positions.shape[0], dtype=dtype)
-        for lvl in range(levels - 1, -1, -1):
-            s = 2.0**lvl
-            if lvl < levels - 1:
-                p = p * 2.0
-            p, errs = _track_level_batch_mxu(
-                pyr_prev[lvl], pyr_next[lvl], positions / s, p, win, iters, dtype
-            )
-        new_pos = p
-    else:
-        new_pos, errs = jax.vmap(track_one)(positions, predicted)
+    new_pos, errs = jax.vmap(track_one)(positions, predicted)
     margin = (win - 1) / 2 + 2
     inside = (
         (new_pos[:, 0] >= margin)

@@ -1,7 +1,7 @@
 """Image pyramids for coarse-to-fine tracking (GIFT ``maxLevel`` equivalent).
 
-The 5-tap binomial blur + 2x decimation runs as two banded matmuls (MXU)
-instead of a single-channel convolution (which wastes the TPU conv unit).
+The 5-tap binomial blur + 2x decimation runs as two banded matmuls
+(``V @ img @ H^T``) instead of a single-channel convolution.
 """
 
 from __future__ import annotations

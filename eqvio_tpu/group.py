@@ -1,6 +1,6 @@
 """The VIO symmetry group, its actions and velocity lifts.
 
-TPU-native redesign of the reference symmetry-group layer
+Redesign of the reference symmetry-group layer
 (``include/eqvio/mathematical/VIOGroup.h:32-179``, ``src/mathematical/VIOGroup.cpp``):
 the per-landmark ``std::vector<SOT3d>`` becomes a single batched SOT(3) with
 array shapes ``R: [N,3,3], a: [N]`` so every per-landmark loop in the reference

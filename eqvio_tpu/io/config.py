@@ -11,15 +11,14 @@ from __future__ import annotations
 
 import sys
 
-import yaml
-
 from ..filter import Settings
 from ..frontend.tracker import TrackerConfig
+from .yaml_lite import safe_load
 
 
 def load_config(path: str) -> dict:
     with open(path) as f:
-        return yaml.safe_load(f)
+        return safe_load(f)
 
 
 def safe_get(node, path: str, default=None, warn: bool = True):
@@ -104,7 +103,7 @@ def settings_from_config(cfg: dict, warn: bool = False) -> Settings:
         use_feature_predictions=g("settings:useFeaturePredictions", False),
         use_equivariant_output=g("settings:useEquivariantOutput", True),
         remove_lost_landmarks=g("settings:removeLostLandmarks", True),
-        # TPU extension (no reference key, so never warn): sqrt-covariance mode
+        # extension (no reference key, so never warn): sqrt-covariance mode
         sqrt_covariance=safe_get(eqf, "settings:useSqrtCovariance", False, warn=False),
         coordinate_choice=_COORD_ALIAS.get(coord, "euclid"),
         camera_offset_quat=quat,
@@ -131,8 +130,6 @@ def tracker_config_from_config(cfg: dict) -> TrackerConfig:
         feature_search_threshold=float(g("featureSearchThreshold", 1.0)),
         equalize_histogram=bool(g("equaliseImageHistogram", False)),
         flow_outlier_threshold=float(g("flowOutlierThreshold", 0.0)),
-        # TPU extension: pin the KLT backend per dataset ("auto" default)
-        klt_mode=str(g("kltMode", "auto")),
         **_ransac_kwargs(gift),
     )
 

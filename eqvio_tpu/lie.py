@@ -1,10 +1,10 @@
-"""Batched Lie-group operations for TPU-native VIO.
+"""Batched Lie-group operations for VIO.
 
 This module is the JAX equivalent of the LiePP header library used by the
 reference EqVIO (see reference use sites: ``include/eqvio/mathematical/VIOState.h:20``,
 ``VIOGroup.h:22-23``).  Unlike LiePP's scalar C++ types, every function here is
 a pure jnp function batched over arbitrary leading axes, so whole landmark sets
-or particle populations map onto the TPU VPU/MXU with a single call.
+or particle populations are processed with a single call.
 
 Groups provided:
 

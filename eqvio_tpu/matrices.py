@@ -1,6 +1,6 @@
 """EqF linearisation matrices A, B, C and innovation lifts.
 
-TPU-native redesign of the reference matrix suites
+Redesign of the reference matrix suites
 (``include/eqvio/mathematical/EqFMatrices.h:35-90``,
 ``src/mathematical/coordinateSuite/{euclid,invdepth,normal}.cpp``): the
 reference's per-landmark 3x3/3x6/2x3 loops become batched einsums over the

@@ -1,17 +1,17 @@
 """Multi-process worker: one full VIO frame step over a global multi-host mesh.
 
-The reference is a single process (SURVEY.md §2.9); this is the TPU build's
+The reference is a single process (SURVEY.md §2.9); this is the
 ``jax.distributed`` path — each process contributes its local devices, the
 sequence-batch axis is sharded over the GLOBAL mesh, and GSPMD emits the
-cross-process collectives (gloo on CPU, ICI/DCN on a real pod slice).
+cross-process collectives (gloo on CPU).
 
 Run as::
 
     python -m eqvio_tpu.parallel.dist_worker <process_id> <num_processes> <port>
 
 with ``JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=K``
-for a virtual multi-host run (K local devices per process), or unmodified on a
-real multi-host TPU slice. Process 0 prints ``DIST_OK ...`` on success.
+for a virtual multi-host run (K local devices per process). Process 0 prints
+``DIST_OK ...`` on success.
 
 Exercised by ``__graft_entry__.dryrun_multichip`` and
 ``tests/test_parallel.py::test_two_process_distributed_step``.

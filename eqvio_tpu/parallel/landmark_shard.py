@@ -7,7 +7,7 @@ landmark axis:
 - each device holds the Sigma landmark block-columns of its shard and
   computes its partial ``Sigma C^T`` and ``S`` columns locally,
 - the small ``S`` (2N x 2N) and ``Sigma C^T`` are assembled with
-  ``all_gather`` over ICI,
+  ``all_gather``,
 - the O(D^2 N) correction ``K (Sigma C^T)^T`` is reduced with ``psum``
   of per-shard outer products.
 
@@ -17,7 +17,7 @@ pre-array block ``C L`` (the expensive O(N D^2) product) is computed
 shard-locally over landmark block-rows and assembled with ``all_gather``;
 the re-triangularising QR runs replicated.
 
-Design note (deliberate small-N design, VERDICT r3 weak #8): the replicated
+Design note (deliberate small-N design): the replicated
 QR is O((2N+D)^3) and is NOT distributed.  A QR is a long sequential chain
 of Householder reflections with all-to-all column coupling; at the
 pre-array's aspect ratio (rows ~ cols) a TSQR row-block split degenerates

@@ -1,7 +1,7 @@
 """Device mesh helpers for multi-chip/multi-host VIO.
 
-The reference is single-process (SURVEY.md §2.9); the TPU build's axes of
-scale are the sequence-batch axis (many dataset sequences in parallel) and
+The reference is single-process (SURVEY.md §2.9); the axes of scale here
+are the sequence-batch axis (many dataset sequences in parallel) and
 the landmark-block axis of Sigma (sharded Gram reduction in the update).
 """
 
@@ -14,12 +14,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
                      process_id: int | None = None):
-    """Initialise multi-host JAX (jax.distributed) when running on a pod slice.
+    """Initialise multi-host JAX (jax.distributed) for a multi-process run.
 
     No-op for single-process runs.  After this, :func:`make_mesh` sees every
-    chip across hosts and the `seq`-sharded batch runner + landmark-sharded
-    update ride ICI/DCN collectives transparently (GSPMD inserts them from
-    the shardings).
+    device across hosts and the `seq`-sharded batch runner + landmark-sharded
+    update use cross-process collectives transparently (GSPMD inserts them
+    from the shardings).
     """
     if num_processes is None or num_processes <= 1:
         return

@@ -80,6 +80,26 @@ def default_sim_camera(dtype=jnp.float64) -> PinholeCamera:
     return PinholeCamera.create(458.654, 457.296, 367.215, 248.375, 752, 480, dtype=dtype)
 
 
+def example_frame_inputs(capacity: int = 16, window: int = 8, dtype=jnp.float32):
+    """Fixed-seed inputs of one frame step: an IMU window near hover, its
+    sample intervals, and ``capacity`` visible pixels with their ids."""
+    rng = np.random.default_rng(0)
+    imu_win = IMU(
+        stamp=jnp.asarray(np.linspace(0.0, 0.035, window), dtype=dtype),
+        gyr=jnp.asarray(rng.normal(size=(window, 3)) * 0.01, dtype=dtype),
+        acc=jnp.asarray(
+            rng.normal(size=(window, 3)) * 0.01 + np.array([0.0, 0.0, 9.81]), dtype=dtype
+        ),
+        gyr_bias_vel=jnp.zeros((window, 3), dtype=dtype),
+        acc_bias_vel=jnp.zeros((window, 3), dtype=dtype),
+    )
+    dts = jnp.full((window,), 0.005, dtype=dtype)
+    pixels = jnp.asarray(rng.uniform(100, 500, size=(capacity, 2)), dtype=dtype)
+    vis = jnp.ones((capacity,), dtype=bool)
+    ids = jnp.arange(capacity, dtype=jnp.int32)
+    return imu_win, dts, pixels, vis, ids
+
+
 class SimInputs(NamedTuple):
     """Prepared (host-side) inputs for a simulation run."""
 

@@ -1,6 +1,6 @@
 """Synthetic VIO simulator: trajectories, world points, IMU + vision generation.
 
-TPU-native redesign of the reference simulator (``src/VIOSimulator.cpp``,
+Redesign of the reference simulator (``src/VIOSimulator.cpp``,
 ``src/dataserver/SimulationDataServer.cpp``): instead of per-query scalar
 code, every signal is generated as a batched array over all query times in one
 vectorised call, and the per-frame feature selection + slot assignment runs as

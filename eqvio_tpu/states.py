@@ -1,6 +1,6 @@
 """VIO state space with fixed-capacity masked landmarks.
 
-TPU-native redesign of the reference state types
+Redesign of the reference state types
 (``include/eqvio/mathematical/VIOState.h:41-90``): instead of a
 ``std::vector<Landmark>`` that grows and shrinks, landmarks live in a
 fixed-capacity array ``[N, 3]`` with an activity ``mask [N]`` and id slots

@@ -2,7 +2,7 @@
 
 Replaces the reference's live GLUT/OpenCV display stack
 (``src/VIOVisualiser.cpp``, ``libs/visualisation/Plotter``) with headless
-matplotlib figure generation — the practical form for TPU pods with no
+matplotlib figure generation — the practical form for hosts with no
 display.  Includes the online SIM(3) alignment of estimate to ground truth
 that the reference visualiser performs (``VIOVisualiser.cpp:25-110``).
 """
@@ -244,7 +244,7 @@ class LiveDisplayServer:
     """Localhost LIVE map viewer: the runtime equivalent of the reference's
     GLUT 3-D plotter (``libs/visualisation/include/Plotter.h:29-108`` and the
     live display loop in ``VIOVisualiser.cpp:139-228``), redesigned for
-    headless/remote TPU hosts: instead of an OpenGL window, a background
+    headless/remote hosts: instead of an OpenGL window, a background
     stdlib HTTP server renders the accumulated :class:`MapDisplay` on demand
     and serves an auto-refreshing page at ``http://127.0.0.1:PORT/``.
 

@@ -1,16 +1,28 @@
 // Native prefetching image loader — the C++ data-loader role of the
 // reference's ThreadedDataServer (src/dataserver/ThreadedDataServer.cpp:20-116):
-// a worker thread decodes PNG frames ahead of the consumer into a bounded
-// queue of grayscale float32 buffers, so the pipeline never blocks on
+// worker threads decode PNG frames ahead of the consumer into a bounded
+// queue of grayscale uint8 buffers, so the pipeline never blocks on
 // disk + decode.
+//
+// The decoder needs only zlib: it reads the same PNGs as the Python codec
+// (eqvio_tpu/data/png.py) -- 8-bit, non-interlaced gray, gray+alpha, RGB and
+// RGBA with any of the five row filters -- and gives the same pixels,
+// colour converted with the same fixed-point ITU-R 601 weights.
 //
 // C API for ctypes (no pybind11 in this toolchain). Build: make -C native.
 
-#include <png.h>
+#if __has_include(<zlib.h>)
+#include <zlib.h>
+#else  // the runtime library without its headers: declare the one call used
+extern "C" int uncompress(unsigned char* dest, unsigned long* dest_len,
+                          const unsigned char* source, unsigned long source_len);
+#endif
 
 #include <atomic>
 #include <condition_variable>
+#include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
 #include <memory>
@@ -28,59 +40,127 @@ struct Frame {
     std::vector<unsigned char> pixels;  // grayscale [h*w], 0..255
 };
 
-bool decode_png_gray(const char* path, Frame& out) {
+uint32_t be32(const unsigned char* p) {
+    return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) | (uint32_t(p[2]) << 8) | p[3];
+}
+
+bool read_file(const char* path, std::vector<unsigned char>& buf) {
     FILE* fp = std::fopen(path, "rb");
     if (!fp) return false;
-    png_byte header[8];
-    if (std::fread(header, 1, 8, fp) != 8 || png_sig_cmp(header, 0, 8)) {
-        std::fclose(fp);
+    std::fseek(fp, 0, SEEK_END);
+    long size = std::ftell(fp);
+    std::fseek(fp, 0, SEEK_SET);
+    bool ok = size > 0;
+    if (ok) {
+        buf.resize(static_cast<size_t>(size));
+        ok = std::fread(buf.data(), 1, buf.size(), fp) == buf.size();
+    }
+    std::fclose(fp);
+    return ok;
+}
+
+int paeth(int a, int b, int c) {
+    int p = a + b - c;
+    int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+    if (pa <= pb && pa <= pc) return a;
+    return pb <= pc ? b : c;
+}
+
+// Undo the per-row filters of `raw` (rows of 1 + stride bytes) into `px`.
+bool unfilter(const unsigned char* raw, size_t height, size_t stride, size_t bpp,
+              unsigned char* px) {
+    std::vector<unsigned char> zeros(stride, 0);
+    const unsigned char* prev = zeros.data();
+    for (size_t y = 0; y < height; ++y) {
+        const unsigned char* line = raw + y * (stride + 1);
+        const unsigned char kind = *line++;
+        unsigned char* cur = px + y * stride;
+        switch (kind) {
+            case 0:
+                std::memcpy(cur, line, stride);
+                break;
+            case 1:  // Sub
+                for (size_t i = 0; i < stride; ++i)
+                    cur[i] = line[i] + (i >= bpp ? cur[i - bpp] : 0);
+                break;
+            case 2:  // Up
+                for (size_t i = 0; i < stride; ++i) cur[i] = line[i] + prev[i];
+                break;
+            case 3:  // Average
+                for (size_t i = 0; i < stride; ++i)
+                    cur[i] = line[i] + (((i >= bpp ? cur[i - bpp] : 0) + prev[i]) >> 1);
+                break;
+            case 4:  // Paeth
+                for (size_t i = 0; i < stride; ++i)
+                    cur[i] = line[i] + paeth(i >= bpp ? cur[i - bpp] : 0, prev[i],
+                                             i >= bpp ? prev[i - bpp] : 0);
+                break;
+            default:
+                return false;
+        }
+        prev = cur;
+    }
+    return true;
+}
+
+bool decode_png_gray(const char* path, Frame& out) {
+    static const unsigned char kSignature[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
+    std::vector<unsigned char> file;
+    if (!read_file(path, file) || file.size() < 8 ||
+        std::memcmp(file.data(), kSignature, 8) != 0)
         return false;
+    uint32_t w = 0, h = 0;
+    int depth = 0, ctype = -1, interlace = 0;
+    std::vector<unsigned char> idat;
+    for (size_t pos = 8; pos + 8 <= file.size();) {
+        const uint32_t len = be32(&file[pos]);
+        const unsigned char* kind = &file[pos + 4];
+        const unsigned char* body = &file[pos + 8];
+        if (len > file.size() - pos - 8) return false;  // truncated chunk
+        if (std::memcmp(kind, "IHDR", 4) == 0) {
+            if (len < 13) return false;
+            w = be32(body);
+            h = be32(body + 4);
+            depth = body[8];
+            ctype = body[9];
+            interlace = body[12];
+        } else if (std::memcmp(kind, "IDAT", 4) == 0) {
+            idat.insert(idat.end(), body, body + len);
+        } else if (std::memcmp(kind, "IEND", 4) == 0) {
+            break;
+        }
+        pos += 12 + static_cast<size_t>(len);
     }
-    png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-    png_infop info = png_create_info_struct(png);
-    if (setjmp(png_jmpbuf(png))) {
-        png_destroy_read_struct(&png, &info, nullptr);
-        std::fclose(fp);
+    const int ch = ctype == 0 ? 1 : ctype == 2 ? 3 : ctype == 4 ? 2 : ctype == 6 ? 4 : 0;
+    if (depth != 8 || ch == 0 || interlace != 0 || w == 0 || h == 0) return false;
+
+    const size_t stride = static_cast<size_t>(w) * ch;
+    std::vector<unsigned char> raw(static_cast<size_t>(h) * (stride + 1));
+    unsigned long raw_len = raw.size();
+    if (uncompress(raw.data(), &raw_len, idat.data(), idat.size()) != 0 ||
+        raw_len != raw.size())
         return false;
-    }
-    png_init_io(png, fp);
-    png_set_sig_bytes(png, 8);
-    png_read_info(png, info);
+    std::vector<unsigned char> px(static_cast<size_t>(h) * stride);
+    if (!unfilter(raw.data(), h, stride, ch, px.data())) return false;
 
-    png_uint_32 w = png_get_image_width(png, info);
-    png_uint_32 h = png_get_image_height(png, info);
-    png_byte color = png_get_color_type(png, info);
-    png_byte depth = png_get_bit_depth(png, info);
-
-    if (depth == 16) png_set_strip_16(png);
-    if (color == PNG_COLOR_TYPE_PALETTE) png_set_palette_to_rgb(png);
-    if (color == PNG_COLOR_TYPE_GRAY && depth < 8) png_set_expand_gray_1_2_4_to_8(png);
-    if (color & PNG_COLOR_MASK_ALPHA) png_set_strip_alpha(png);
-    if (color == PNG_COLOR_TYPE_RGB || color == PNG_COLOR_TYPE_RGB_ALPHA ||
-        color == PNG_COLOR_TYPE_PALETTE) {
-        png_set_rgb_to_gray_fixed(png, 1, -1, -1);  // BT.709 luma
-    }
-    png_read_update_info(png, info);
-
-    std::vector<png_byte> row(png_get_rowbytes(png, info));
+    const size_t n = static_cast<size_t>(w) * h;
     out.height = static_cast<int>(h);
     out.width = static_cast<int>(w);
-    out.pixels.resize(static_cast<size_t>(w) * h);
-    for (png_uint_32 y = 0; y < h; ++y) {
-        png_read_row(png, row.data(), nullptr);
-        std::memcpy(out.pixels.data() + static_cast<size_t>(y) * w, row.data(), w);
+    out.pixels.resize(n);
+    for (size_t i = 0; i < n; ++i) {
+        const unsigned char* p = &px[i * ch];
+        out.pixels[i] = ch <= 2 ? p[0]
+                                : static_cast<unsigned char>(
+                                      (p[0] * 19595u + p[1] * 38470u + p[2] * 7471u + 0x8000u) >> 16);
     }
-    png_destroy_read_struct(&png, &info, nullptr);
-    std::fclose(fp);
     return true;
 }
 
 // Decode POOL with in-order delivery: N workers claim path indices from a
 // shared cursor, decode concurrently, and insert into a reorder buffer the
 // consumer drains strictly in order.  Outstanding frames are bounded by
-// queue_cap so memory stays flat.  On the 2-vCPU hosts the extra workers
-// overlap PNG decode with the python thread's device-RPC waits (GIL
-// released), which is where the fused pipeline loses wall time.
+// queue_cap so memory stays flat.  The workers overlap PNG decode with the
+// Python thread's waits on the device (the GIL is released there).
 struct Loader {
     std::vector<std::string> paths;
     size_t queue_cap;

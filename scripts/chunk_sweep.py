@@ -1,10 +1,9 @@
-"""Chunk-size sweep of the full-frame pipeline on the real chip.
+"""Chunk-size sweep of the full-frame pipeline on one GPU.
 
-VERDICT r2 #2: the 34.4 fps headline at chunk=16 was never swept.  Runs the
-bench sequence at several ``--chunk`` values and prints wall fps plus the
-dispatch/device/fetch decomposition per frame.
+Runs the bench sequence at several ``--chunk`` values and prints wall fps
+plus the dispatch/device/fetch decomposition per frame.
 
-    timeout 7200 python scripts/chunk_sweep.py [chunks...]
+    python scripts/chunk_sweep.py [chunks...]
 """
 
 import json
@@ -13,14 +12,6 @@ import sys
 import tempfile
 import time
 
-import jax
-
-jax.config.update("jax_default_matmul_precision", "float32")
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-except Exception:
-    pass
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -28,8 +19,12 @@ def main():
     import jax.numpy as jnp
 
     from bench import BENCH_DATASET, _ensure_dataset
+    from eqvio_tpu.app._env import configure_runtime, require_gpu
     from eqvio_tpu.app.run_opt import run_dataset
     from eqvio_tpu.io import load_config
+
+    configure_runtime()
+    require_gpu()
 
     _ensure_dataset()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -131,8 +131,8 @@ def test_run_opt_fused_matches_per_frame(synthetic_dataset, tmp_path):
 
 def test_run_opt_checkpoint_resume(synthetic_dataset, tmp_path):
     """Kill a run mid-sequence, resume from its checkpoint, and get the
-    IDENTICAL final-state CSV as the uninterrupted run (VERDICT r2 #5:
-    checkpoint/resume as a product feature, not just a library)."""
+    IDENTICAL final-state CSV as the uninterrupted run (checkpoint/resume
+    as a product feature, not just a library)."""
     path, _ = synthetic_dataset
     from eqvio_tpu.app.run_opt import run_dataset
 

@@ -329,7 +329,7 @@ def test_sqrt_covariance_matches_dense():
 def test_sqrt_covariance_f32_survives_euroc_variances():
     """float32 + the reference's tuned EuRoC variances (spread ~1e13): the
     dense filter's Cholesky collapses, the sqrt filter must stay finite and
-    track.  This is the TPU numerics case (configs/config_EuRoC.yaml)."""
+    track.  This is the f32 numerics case off the CPU (configs/config_EuRoC.yaml)."""
     import numpy as np
 
     euroc = dict(

@@ -163,8 +163,7 @@ REPO_CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 def test_config_value_parity_with_reference(ref_name, our_name):
     """Every tuned scalar in our shipped configs must parse to EXACTLY the
     same Settings/TrackerConfig as the reference's shipped configs do through
-    the same key map (VERDICT r1 item 7: the EuRoC run lives or dies on these
-    values)."""
+    the same key map (the EuRoC run lives or dies on these values)."""
     from eqvio_tpu.io import tracker_config_from_config
 
     ref = load_config(os.path.join(REF_CONFIGS, ref_name))

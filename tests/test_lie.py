@@ -2,7 +2,7 @@
 
 Mirrors the reference's sampling-based group-axiom strategy
 (``test/test_VIOGroup.cpp:26-59``) but runs every repetition as one batched
-call — the TPU-native idiom.
+call.
 """
 
 import jax

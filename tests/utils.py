@@ -98,3 +98,58 @@ def group_distance(a: VIOGroup, b: VIOGroup) -> float:
 
 
 camera = default_test_camera
+
+
+# --------------------------------------------------------------------------
+# plain numpy pyramidal Lucas-Kanade: an independent reference for
+# ``frontend.klt`` (same clamp-per-sample bilinear sampling and update rule,
+# written as loops over features and levels)
+
+
+def np_bilinear(img: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Bilinear sample with per-sample clamping to the image (edge
+    replication), as GIFT's KLT samples windows that cross the border."""
+    h, w = img.shape
+    x = np.clip(x, 0.0, w - 1.001)
+    y = np.clip(y, 0.0, h - 1.001)
+    x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+    fx, fy = x - x0, y - y0
+    return (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+            + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+
+
+def np_track_level(img0, img1, pos, guess, win: int, iters: int):
+    """One level of LK for one feature: ``(position, mean |residual|)``."""
+    offs = np.arange(win) - (win - 1) / 2.0
+    ox, oy = np.meshgrid(offs, offs)
+    tx, ty = pos[0] + ox, pos[1] + oy
+    template = np_bilinear(img0, tx, ty)
+    gx = np_bilinear(img0, tx + 1.0, ty) - np_bilinear(img0, tx - 1.0, ty)
+    gy = np_bilinear(img0, tx, ty + 1.0) - np_bilinear(img0, tx, ty - 1.0)
+    gxx, gxy, gyy = (gx * gx).sum(), (gx * gy).sum(), (gy * gy).sum()
+    det = gxx * gyy - gxy * gxy
+    det = 1e-12 if abs(det) < 1e-12 else det
+    p, err = np.array(guess, dtype=float), np.inf
+    for _ in range(iters):
+        diff = np_bilinear(img1, p[0] + ox, p[1] + oy) - template
+        bx, by = (diff * gx).sum(), (diff * gy).sum()
+        p = p - np.array([gyy * bx - gxy * by, gxx * by - gxy * bx]) / det
+        err = np.abs(diff).mean()
+    return p, err
+
+
+def np_track_features(pyr0, pyr1, positions, guesses, win: int, iters: int = 8):
+    """Coarse-to-fine LK over the pyramids for every feature."""
+    levels = len(pyr0)
+    pyr0 = [np.asarray(p, dtype=float) for p in pyr0]
+    pyr1 = [np.asarray(p, dtype=float) for p in pyr1]
+    out, errs = [], []
+    for pos, guess in zip(np.asarray(positions, float), np.asarray(guesses, float)):
+        p, err = guess / 2.0 ** (levels - 1), np.inf
+        for lvl in range(levels - 1, -1, -1):
+            if lvl < levels - 1:
+                p = p * 2.0
+            p, err = np_track_level(pyr0[lvl], pyr1[lvl], pos / 2.0**lvl, p, win, iters)
+        out.append(p)
+        errs.append(err)
+    return np.array(out), np.array(errs)
